@@ -1,8 +1,8 @@
-"""fastkmer_tpu — TPU-native exact k-mer counting engine.
+"""fastkmer_tpu — exact k-mer counting engine for GPUs.
 
-A from-scratch JAX/XLA/Pallas re-design of the capabilities of the Spark
+A from-scratch JAX/XLA re-design of the capabilities of the Spark
 reference (maruscia/fastkmer, see SURVEY.md): KMC2-style minimizer-signature
-binning and exact canonical k-mer counting, distributed over a TPU device
+binning and exact canonical k-mer counting, distributed over a GPU device
 mesh with shard_map + all-to-all instead of a Spark shuffle.
 """
 

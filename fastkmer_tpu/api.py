@@ -72,8 +72,8 @@ def count_kmers_distributed(
 
     ``n_devices``: mesh width (defaults to every visible device; on a
     multi-host fleet call under ``jax.distributed`` with the global device
-    count).  ``prededup``: duplication-aware exchange transport (None =
-    adaptive probing).  ``use_custom_partitioner``: sampled LPT bin->chip
+    count; raises when fewer devices exist).  ``prededup``:
+    duplication-aware exchange transport (None = adaptive probing).  ``use_custom_partitioner``: sampled LPT bin->chip
     placement (the reference's MultiprocessorSchedulingPartitioner).
     Returns parallel.driver.DistributedResult (adds owner_map / balance /
     exchange_bytes / n_dedup_batches to the count table)."""
@@ -81,10 +81,10 @@ def count_kmers_distributed(
 
     from .parallel import exchange
     from .parallel.driver import execute_job_distributed
+    from .utils import devices
 
-    devs = jax.devices()
-    n = n_devices or len(devs)
-    mesh = jax.make_mesh((n,), (exchange.AXIS,), devices=devs[:n])
+    n = n_devices or len(jax.devices())
+    mesh = jax.make_mesh((n,), (exchange.AXIS,), devices=devices.mesh_devices(n))
     cfg = JobConfig(
         dataset=dataset,
         output_directory=output_directory or "",

@@ -7,13 +7,13 @@ src/main/scala/skc/test/TestKmerCounter.scala:34-47):
     k m x B useHT sequenceType input output prefix write enableKryo
     useCustomPartitioner [numPartitionTasks]
 
-plus optional named flags for TPU-specific knobs.  ``--multiseq`` switches
+plus optional named flags for device-specific knobs.  ``--multiseq`` switches
 to the multisequence driver (TestMultisequenceKmerCounter.main,
 multisequence/TestMultisequenceKmerCounter.scala:12-107, same positionals).
 
 The reference's local/cluster split (LocalTestKmerCounter vs
 TestKmerCounter) maps to ``--platform cpu`` (host simulation) vs the
-default TPU platform.
+default GPU platform.
 """
 
 from __future__ import annotations
@@ -26,7 +26,7 @@ import sys
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(
         prog="fastkmer_tpu",
-        description="TPU-native exact k-mer counting (fastkmer-compatible CLI)",
+        description="Exact k-mer counting on a GPU (fastkmer-compatible CLI)",
     )
     p.add_argument("k", type=int)
     p.add_argument("m", type=int)
@@ -46,8 +46,9 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("numPartitionTasks", type=int, nargs="?", default=0)
     p.add_argument("--multiseq", action="store_true", help="multisequence mode with distances")
     p.add_argument("--distance-measure", default="multisequence.SquaredEuclidean")
-    p.add_argument("--platform", choices=("tpu", "cpu"), default="tpu",
-                   help="cpu = local-mode simulation (the LocalTestKmerCounter analogue)")
+    p.add_argument("--platform", choices=("gpu", "cpu"), default="gpu",
+                   help="gpu = fail unless JAX finds a GPU; cpu = local-mode "
+                        "simulation (the LocalTestKmerCounter analogue)")
     p.add_argument("--reads-per-batch", type=int, default=512)
     p.add_argument("--read-len", type=int, default=4096)
     p.add_argument("--stats-json", default=None, help="write run summary JSON here")
@@ -79,10 +80,9 @@ def build_parser() -> argparse.ArgumentParser:
 def main(argv=None) -> int:
     args = build_parser().parse_args(argv)
 
-    if args.platform == "cpu":
-        import jax
+    from .utils import devices
 
-        jax.config.update("jax_platforms", "cpu")
+    devices.select_platform(args.platform)
 
     common = dict(
         dataset=args.input,
@@ -107,10 +107,9 @@ def main(argv=None) -> int:
 
         from .parallel import exchange
 
-        devs = jax.devices()
-        if len(devs) < args.mesh:
-            devs = jax.devices("cpu")
-        mesh = jax.make_mesh((args.mesh,), (exchange.AXIS,), devices=devs[: args.mesh])
+        mesh = jax.make_mesh(
+            (args.mesh,), (exchange.AXIS,), devices=devices.mesh_devices(args.mesh)
+        )
 
     # one uniform profiling hook for every mode (count/multiseq x
     # single/mesh) — the library entry points also accept trace_dir
@@ -213,10 +212,6 @@ def _dispatch_job(args, common: dict, mesh) -> int:
             "mode": "count",
             "mesh": args.mesh,
             "engine": "hash" if cfg.use_ht else "sort",
-            # measured: the HT engine trails the sort engine at every k on
-            # TPU (1.7-2.4x, benchmarks/ht_vs_sort.py) — parity feature
-            **({"engine_note": "useHT=1 is ~2x slower than useHT=0 on TPU"}
-               if cfg.use_ht else {}),
             "n_instances": res.n_instances,
             "n_unique": int(res.words.shape[0]),
             "n_reads": res.n_reads,

@@ -1,7 +1,7 @@
 """Run configuration — field-for-field equivalent of the reference's
 ``TestConfiguration`` (reference: src/main/scala/skc/test/package.scala:16-42)
 with the same derived values (b = min(4^m, max_b); output-dir naming scheme)
-plus TPU-specific batching/mesh knobs the Spark runtime supplied implicitly.
+plus device batching/mesh knobs the Spark runtime supplied implicitly.
 """
 
 from __future__ import annotations
@@ -29,7 +29,7 @@ class JobConfig:
     num_partition_tasks: int = 0
     prefix: str = ""
 
-    # --- TPU-native runtime knobs (Spark analogues in parentheses) ---
+    # --- device runtime knobs (Spark analogues in parentheses) ---
     reads_per_batch: int = 512  # rows per device batch (~input split)
     read_len: int = 4096  # max bases per row; longer reads are k-1-overlap chunked
     sample_fraction: float = 0.01  # partitioner pre-pass sample (SparkBinKmerCounter.scala:1024)
@@ -58,7 +58,7 @@ class JobConfig:
 
     def describe(self) -> str:
         d = (
-            "Kmer counting on TPU (fastkmer_tpu).\nTest parameters:\n"
+            "Kmer counting on GPU (fastkmer_tpu).\nTest parameters:\n"
             f"Dataset: {self.dataset}\nk: {self.k}\nm: {self.m}\nx: {self.x}\nb: {self.b}\n"
             f"Sequence type: {self.sequence_type}\nUsing HT:  {self.use_ht}\n"
             f"Writing: {self.write}\nUsing Kryo Serializer: {self.use_kryo_serializer}\n"

@@ -1,6 +1,6 @@
 """Host-side (numpy) bit-level genomic core.
 
-This is the TPU framework's equivalent of the reference's bit-level core
+This is the framework's equivalent of the reference's bit-level core
 (reference: src/main/scala/skc/package.scala:17-135, 686-754), re-designed
 array-first: instead of a ``Kmer`` object graph, sequences are flat numpy
 arrays of 2-bit codes and k-mers are tuples of big-endian packed uint32
@@ -17,7 +17,7 @@ Representation choices (differ deliberately from the reference's
 * a k-mer is ``W = ceil(k/16)`` uint32 words; base 0 (leftmost) sits in the
   highest bits of word 0; the last word is zero-padded in its LOW bits, so
   lexicographic string order == numeric order of the word tuple.  This is
-  what makes ``jax.lax.sort(num_keys=W)`` a correct k-mer comparator on TPU
+  what makes ``jax.lax.sort(num_keys=W)`` a correct k-mer comparator on the device
   (the reference instead compares packed Longs, package.scala:389-404).
 """
 

@@ -1,12 +1,12 @@
 """Device-side (jax.numpy) bit-level core.
 
-TPU-first re-design of the reference's norm-table / hash / RC machinery
+Device re-design of the reference's norm-table / hash / RC machinery
 (reference: src/main/scala/skc/package.scala:46-135, 686-695): instead of a
 4^m-entry table gather per position (``Mmer.insert`` -> ``norm(_data)``,
 package.scala:552-558), the canonical+allowed "norm" of every m-mer is
-computed *analytically* with ~15 VPU bit-ops — random gathers into a 4 MB
-table are slow on TPU while elementwise uint32 ops run at full VPU rate and
-fuse with the rest of the stage-1 pipeline under XLA.
+computed *analytically* with ~15 elementwise bit-ops, which fuse with the
+rest of the stage-1 pipeline under XLA instead of a random gather into a
+4 MB table.
 
 All functions are shape-polymorphic elementwise over uint32 arrays and are
 verified bit-exact against the numpy versions in ``core.bits``.

@@ -2,7 +2,7 @@
 in place of assertions (SURVEY.md §4).
 
 * ``find_bin_signatures`` — per-bin histogram of signature -> #super-k-mers,
-  the TPU form of ``executeFindBinSignaturesJob`` / ``getBinSignatures`` /
+  the device form of ``executeFindBinSignaturesJob`` / ``getBinSignatures`` /
   ``saveBinSignatures`` (SparkBinKmerCounter.scala:772-986): the skew
   analysis tool.  Output format matches: one ``bin_signatures<N>.txt`` per
   bin with ``<SIGNATURE>\\t<count>`` lines and a ``Total\\t<sum>`` footer.

@@ -1,6 +1,6 @@
 """Host-side FASTA/FASTQ ingest.
 
-TPU-native replacement for the FASTdoop Hadoop input formats the reference
+Replacement for the FASTdoop Hadoop input formats the reference
 relies on (reference: SparkBinKmerCounter.scala:1009-1012, pom.xml:70-74):
 
 * ``sequence_type=0`` (short mode) — every FASTA/FASTQ record is one read,

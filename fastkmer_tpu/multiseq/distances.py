@@ -6,7 +6,7 @@ implementations SquaredEuclidean.java / KLDLog2.java / KLDLogN.java).  The
 contract is preserved (init / partial / operator / finalize / symmetry /
 name / compatibility + the static count normalization helper) but the
 partial-distance computation is *vectorized*: ``partial`` takes numpy
-arrays of count pairs, because the TPU pipeline accumulates distances over
+arrays of count pairs, because the device pipeline accumulates distances over
 whole unique-(k-mer, sequence) tables, not one scalar at a time.
 
 Per the reference semantics, partials are computed on RAW per-k-mer counts
@@ -66,7 +66,7 @@ class DistanceMeasure:
 
         equals ``sum_r F[g, a] * G[g, b]`` for present cells — then the
         S x S pair sums reduce to blocked ``F.T @ G`` Gram products (BLAS
-        on host, MXU on device) instead of an O(U*S) pairwise sweep.
+        on host, matmuls on device) instead of an O(U*S) pairwise sweep.
         Return None to use the generic fallback."""
         return None
 

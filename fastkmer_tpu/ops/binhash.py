@@ -2,9 +2,9 @@
 
 The signature (minimizer) is a pure function of the k-mer string (SURVEY.md
 §0), so the bin never needs to ride through sorts or collectives as a
-carried column — recomputing it with ~k·log(k) elementwise VPU ops over the
+carried column — recomputing it with ~k·log(k) elementwise ops over the
 final rows is far cheaper than permuting a 4-byte lane through every pass
-of a bitonic sort or shipping it across ICI.  This is a TPU-specific
+of a sort or shipping it across the interconnect.  This is a deliberate
 inversion of the reference design, where the bin key IS the shuffle route
 and must travel with the payload.
 """

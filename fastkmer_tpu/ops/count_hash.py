@@ -3,8 +3,8 @@
 The reference's HT path (``extractKXmersHT``,
 SparkBinKmerCounter.scala:664-739) replaces sort+merge with a fastutil
 ``Object2IntOpenHashMap`` sized by the extraction-time upper bound.  A
-probing hash table is the wrong shape for a TPU (no atomics, vector-hostile
-random access), so the TPU re-interpretation keeps the *hash-based* idea —
+probing hash table needs atomics and random access; this
+re-interpretation keeps the *hash-based* idea —
 compare 64-bit fingerprints instead of full k-mer keys — in a sort-friendly
 form:
 
@@ -17,15 +17,13 @@ The verification makes exactness unconditional: a 64-bit fingerprint
 collision (prob ~ N^2 / 2^64) raises ``FingerprintCollision`` and the
 caller re-runs the batch with the sort engine.
 
-PERFORMANCE (measured, benchmarks/ht_vs_sort.py on the TPU v5e at 2^22
-rows): this engine is SLOWER than the sort engine at every k — 2.4x at
-k=28, 1.8x at k=55, 1.7x at k=75/97.  Sorting 3 fingerprint keys instead
-of W word keys does not help because the W word columns still ride as sort
-*values* (the engine permutes W+4 lanes per bitonic pass vs the sort
-engine's W), and lane count is what a TPU sort pays for.  It exists for
-reference parity (useHT=1, extractKXmersHT) and as the cross-engine
-exactness check, not as a fast path; useHT=0 is always the right default
-here, unlike the reference where fastutil's open addressing could win.
+PERFORMANCE: sorting 3 fingerprint keys instead of W word keys does not
+shrink the sort, because the W word columns still ride as sort *values*
+(the engine permutes W+4 lanes vs the sort engine's W).  This engine was
+slower than the sort engine at every k on the previous accelerator; it is
+not yet measured on the H100.  It exists for reference parity (useHT=1,
+extractKXmersHT) and as the cross-engine exactness check; useHT=0 is the
+default.
 
 Both engines must produce identical count tables — the cross-engine
 equality the reference relied on for validation (SURVEY.md §4).

@@ -1,15 +1,15 @@
 """Sort-based exact counting (the reduce side, default engine).
 
-TPU re-design of the reference's sort path (``extractKXmers``,
+Device re-design of the reference's sort path (``extractKXmers``,
 SparkBinKmerCounter.scala:428-660): the reference expands super-k-mers into
 (k,x)-mer run buckets, quicksorts each, and streams a heap-merge of shifted
 scanners (RIndex / priorityQueueWithIndexes, package.scala:562-681).  All of
 that machinery exists to enumerate k-mers in globally sorted order so equal
-runs become counts.  On TPU the same output semantics collapse to:
+runs become counts.  On the device the same output semantics collapse to:
 
-    lax.sort on (validity, word_0..word_{W-1}) keys   # bitonic, MXU-free
+    lax.sort on (validity, word_0..word_{W-1}) keys
     run-boundary detection + run totals via forward scans only
-    (_mark_and_count — flips and gathers are pathological on TPU)
+    (_mark_and_count — no flips, no gathers)
 
 with no scatter, no heap, no dynamic shapes.  Invalid entries carry a 1 in
 the leading key word so they sort strictly after every real k-mer and can
@@ -60,10 +60,9 @@ def _mark_and_count(key_cols, svalid, sw=None):
     Returns (is_uniq, counts, n_valid).  Scan-only on purpose: the obvious
     head-marked formulation needs the NEXT boundary index (a suffix cummin
     = two jnp.flip passes) and, for weighted runs, a cumulative-weight
-    lookup at that index (a random gather, ~9 ns/elem on TPU); measured at
-    2^27 rows that epilogue cost ~4.7x the sort it followed.  Tail-marking
-    needs only the PREVIOUS boundary, which forward scans propagate:
-    one cumsum (weights) + one cummax (head anchor), no flip/gather.
+    lookup at that index (a random gather).  Tail-marking needs only the
+    PREVIOUS boundary, which forward scans propagate: one cumsum (weights)
+    + one cummax (head anchor), no flip/gather.
 
     Ranges: per-call total weight must stay < 2^31 (int32 scans) — callers
     bound merge fan-in accordingly, same contract as the int32 counts.
@@ -90,11 +89,9 @@ def _mark_and_count(key_cols, svalid, sw=None):
 
 def pow2_pad_rows(n: int, floor: int = 1 << 18, limit: float = 1.10) -> int:
     """Sentinel rows to append so a device sort runs at a power-of-two row
-    count: lax.sort at pow2 sizes measured 1.20x cheaper at the per-batch
-    shape (2-op, 16.67M -> 2^24, +0.66% rows; TPU v5e round 4) and 21%
-    cheaper at the 151M merge shape (split_merge_probe.py).  0 when the
-    next pow2 is further than ``limit`` away or the input is small (the
-    discount is a layout/tiling effect of large sorts)."""
+    count: lax.sort at pow2 sizes was cheaper per element on the previous
+    accelerator (calibrated there; not yet measured on the H100).  0 when
+    the next pow2 is further than ``limit`` away or the input is small."""
     if n < floor:
         return 0
     p2 = 1 << (n - 1).bit_length()
@@ -197,8 +194,7 @@ def _sort_sliced(ops: tuple, num_keys: int, fills: tuple):
 
 def count_presentineled(cols: list, weights: jnp.ndarray | None = None) -> SortedCounts:
     """Count from pre-sentineled key columns (invalid rows already all-ones,
-    e.g. from ops.pallas_extract.extract_pallas_sentinel or accumulator
-    merge rows): sorts the bare keys and derives validity from the sentinel
+    e.g. from pipeline._batch_extract_keys or accumulator merge rows): sorts the bare keys and derives validity from the sentinel
     — zero pre-sort rewrites.  ``weights`` (int32, already 0 on sentinel
     rows) turns run-length counting into weighted merging.  bins in the
     result are None."""
@@ -228,8 +224,6 @@ def compact_marked(
     is_uniq: jnp.ndarray,
     out_cap: int,
     block: int = 8192,
-    pallas: bool = False,
-    pallas_interpret: bool = False,
 ):
     """Compact the marker rows of a SORTED run view to the front, in order,
     at fixed capacity.
@@ -246,21 +240,10 @@ def compact_marked(
     are stitched with a lax.scan of dynamic_update_slice at cumulative
     offsets (each block writes its full width; the next block's write
     starts exactly after this block's live prefix, overwriting the sentinel
-    tail).  Measured at 2^27 rows x 3 lanes: 0.26 s vs 0.86 s for the
-    global compaction sort (benchmarks/block_probe.py).
+    tail).
 
     Requires the sentinel to sort after every live row (sentinel-safe keys,
     or a trailing lane that is never all-ones on live rows).
-
-    ``pallas=True`` runs the block-local sorts through the fused bitonic
-    kernel (ops.pallas_sort.sort_blocks); the DUS stitch is unchanged.
-    Standalone, the kernel beats XLA's batched sort 2.2x per stage
-    (benchmarks/pallas_sort_probe.py), but INSIDE the fused 151M-row merge
-    program the swap measured a wash (1.139 vs 1.124 s,
-    benchmarks/compact_probe.py) — XLA fuses the sentinel rewrite and
-    overlaps the batched sort well enough at merge shape — so production
-    call sites keep lax with block=1<<15 (the measured best) and the Pallas
-    path is an explicit opt-in (pallas_compact_opt_in).
     """
     N = cols[0].shape[0]
     W = len(cols)
@@ -270,23 +253,12 @@ def compact_marked(
     ones = jnp.uint32(0xFFFFFFFF)
     ccols = [jnp.where(is_uniq, c, ones) for c in cols]
     cnts = jnp.where(is_uniq, counts, 0)
-    if pallas and block >= 1024:
-        from . import pallas_sort
-
-        in_vma = getattr(getattr(cols[0], "aval", None), "vma", frozenset())
-        flat = pallas_sort.sort_blocks(
-            tuple(ccols) + (cnts,), num_keys=W, block=block,
-            interpret=pallas_interpret,
-            vma=frozenset(in_vma) if in_vma else None,
-        )
-        blocked = tuple(c.reshape(nb, block) for c in flat)
-    else:
-        blocked = jax.lax.sort(
-            tuple(c.reshape(nb, block) for c in ccols) + (cnts.reshape(nb, block),),
-            dimension=1,
-            num_keys=W,
-            is_stable=False,
-        )
+    blocked = jax.lax.sort(
+        tuple(c.reshape(nb, block) for c in ccols) + (cnts.reshape(nb, block),),
+        dimension=1,
+        num_keys=W,
+        is_stable=False,
+    )
     live = blocked[W - 1] != ones  # [nb, block]
     h = jnp.sum(live.astype(jnp.int32), axis=1)
     n_u = jnp.sum(h)
@@ -319,15 +291,6 @@ def compact_marked(
         n_u,
         jnp.maximum(n_u - out_cap, 0),
     )
-
-
-def pallas_compact_opt_in() -> bool:
-    """FASTKMER_PALLAS_COMPACT=1 routes compact_marked's block sorts through
-    the Pallas bitonic kernel.  Off by default: measured parity inside the
-    production merge (see compact_marked's docstring)."""
-    import os
-
-    return os.environ.get("FASTKMER_PALLAS_COMPACT") == "1"
 
 
 def sentinel_safe_for(k: int) -> bool:

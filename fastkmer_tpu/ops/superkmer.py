@@ -5,7 +5,7 @@ The reference emits maximal runs of consecutive k-mers sharing one
 minimizer signature as single packed super-k-mers (``getSuperKmers``,
 SparkBinKmerCounter.scala:34-169) because shuffling ``run + k - 1`` bases
 is far cheaper than shuffling ``run`` full k-mers.  The same economics hold
-for ICI/DCN all-to-alls, so the TPU design reproduces the super-k-mer as a
+for device all-to-alls, so this design reproduces the super-k-mer as a
 *fixed-width record*:
 
     payload: SMAX bases packed in SMAX/16 uint32 words
@@ -59,17 +59,13 @@ def payload_words(smax: int) -> int:
     return smax // BASES_PER_WORD
 
 
-def group(codes: jnp.ndarray, k: int, m: int, B: int, smax: int,
-          ex: Extracted | None = None) -> tuple[SuperKmers, Extracted]:
+def group(codes: jnp.ndarray, k: int, m: int, B: int,
+          smax: int) -> tuple[SuperKmers, Extracted]:
     """Detect super-k-mer runs over a [R, L] code batch.
 
     Returns (SuperKmers, Extracted) — the Extracted is the underlying
     per-position view (shared work), letting callers choose per-k-mer or
-    super-k-mer transport from one extraction pass.  ``ex`` accepts a
-    precomputed Extracted for the same (codes, k, m, B) — the mesh smer
-    transport passes the fused Pallas extractor's output here so the
-    per-position pass reads HBM once (exchange._extract_fn; the Pallas and
-    jnp extractors are bit-exact, tests/test_pallas_extract.py).
+    super-k-mer transport from one extraction pass.
     """
     from . import extract as ex_mod
 
@@ -77,8 +73,7 @@ def group(codes: jnp.ndarray, k: int, m: int, B: int, smax: int,
     P = L - k + 1
     cap = smax - k + 1  # max k-mers per record
     assert cap >= 1
-    if ex is None:
-        ex = ex_mod.extract(codes, k, m, B)
+    ex = ex_mod.extract(codes, k, m, B)
     sigs = ex.sigs.reshape(R, P)
     valid = ex.valid.reshape(R, P)
     bins2 = ex.bins.reshape(R, P)

@@ -2,7 +2,7 @@
 
 The reference computes minimizers with a serial rolling window + O(k·m)
 rescans on expiry (SparkBinKmerCounter.scala:98-139, package.scala:337-357).
-On TPU that control flow is poison; instead we compute, for *every*
+On a vector device that control flow is poison; instead we compute, for *every*
 position at once:
 
 * ``rolling_pack``  — packed 2-bit windows via shift-or doubling,
@@ -10,7 +10,7 @@ position at once:
   (the classic sparse-table / "parallel sliding window" trick, cf. the
   sliding-window-sums paper in PAPERS.md),
 
-both O(log w) full-width VPU passes with static shapes.
+both O(log w) full-width elementwise passes with static shapes.
 """
 
 from __future__ import annotations

@@ -2,7 +2,7 @@
 
 The reference had none (SURVEY.md §5: jobs are one-shot, recovery is Spark
 lineage retry; the only trace is commented-out per-bin success bookkeeping,
-SparkBinKmerCounter.scala:608-639).  The TPU design makes both explicit:
+SparkBinKmerCounter.scala:608-639).  This design makes both explicit:
 
 * ``write_manifest`` records the run config, per-bin files and row counts,
   and a table checksum, so output completeness is verifiable

@@ -1,6 +1,6 @@
 // Native k-way merge of sorted unique (k-mer words, count, bin) tables —
 // the host-side analogue of the reference's heap-of-scanners merge
-// (priorityQueueWithIndexes, package.scala:642-681), applied where the TPU
+// (priorityQueueWithIndexes, package.scala:642-681), applied where the device
 // design actually needs a host merge: combining accumulator spills /
 // per-chip tables at finalize (pipeline.merge_partials).
 //

@@ -1,18 +1,19 @@
-"""Multi-host pod-slice initialization.
+"""Multi-host initialization.
 
 The reference scales by adding Spark executors (spark-submit
---num-executors, README.md:86-90); the TPU equivalent is a multi-host pod
-slice where every host runs the same program and jax stitches the global
+--num-executors, README.md:86-90); the equivalent here is a multi-host GPU
+cluster where every host runs the same program and jax stitches the global
 device mesh.  All the counting code in this package is written against a
-1-D "data" mesh axis and works unchanged on a multi-host mesh: the
-all-to-all rides ICI within a slice and DCN across slices transparently.
+1-D "data" mesh axis and works unchanged on a multi-host mesh: XLA hands
+the all-to-all to NCCL, over NVLink within a host and the network across
+hosts.
 
-This environment exposes a single chip, so this module is exercised only in
-its single-process degenerate form (tests) — but it is the intended
-entry point on real pods:
+Tests exercise it with several CPU processes on one machine; on a cluster
+it is the intended entry point:
 
     from fastkmer_tpu.parallel import multihost
-    mesh = multihost.init_global_mesh()          # all chips, all hosts
+    multihost.init_distributed("host0:1234", num_processes=2, process_id=i)
+    mesh = multihost.init_global_mesh()          # all GPUs, all hosts
     ctr = stream.DistributedCounter(mesh, ...)   # unchanged
 
 Host-side ingest sharding: each host reads a distinct stripe of the input
@@ -30,8 +31,12 @@ from . import exchange
 def init_distributed(coordinator_address: str | None = None,
                      num_processes: int | None = None,
                      process_id: int | None = None) -> None:
-    """jax.distributed.initialize with TPU auto-detection when args are None
-    (on Cloud TPU the metadata server supplies everything)."""
+    """jax.distributed.initialize for a GPU cluster.  Nothing on a plain
+    GPU host tells JAX about the cluster, so every process passes the same
+    ``coordinator_address`` (``host:port`` of process 0), the total
+    ``num_processes`` and its own ``process_id``.  Called without them
+    (tests, one host) it is a no-op unless a cluster environment JAX knows
+    (e.g. SLURM) supplies them."""
     if jax.process_count() > 1:
         return  # already initialized
     kwargs = {}

@@ -13,7 +13,7 @@ src/main/scala/skc/MultiprocessorSchedulingPartitioner.scala:11-69):
 * bins unseen in the sample fall back to ``nonNegativeMod(bin, n_parts)``
   (:27-30) — here simply ``bin % n_parts`` since bin ids are non-negative.
 
-Where the reference returns a Spark ``Partitioner``, the TPU version
+Where the reference returns a Spark ``Partitioner``, this version
 returns a dense ``int32[B]`` owner table that is closed over by the jitted
 exchange step — the device-side analogue of a partitioner object.
 """
@@ -62,7 +62,7 @@ def size_exchange_cap(
 
     The reference computes an extraction-time per-bin k-mer upper bound to
     size its reduce-side tables (``getSuperKmersWithBinSizes``,
-    SparkBinKmerCounter.scala:290-426); the TPU analogue sizes the exchange
+    SparkBinKmerCounter.scala:290-426); the device analogue sizes the exchange
     buffers: a chip extracting ``positions`` k-mers per batch sends about
     ``positions * load_share(dst)`` entries to each destination, so the
     capacity is the maximum owner share times a slack factor.  Overflow is

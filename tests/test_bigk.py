@@ -1,11 +1,10 @@
 """k > 128 end-to-end coverage (W > 8 words per k-mer).
 
 The reference's ``Kmer`` is arbitrary-length (package.scala:138-503); the
-repo's jnp paths are W-generic, the Pallas extract covers k <= 128 and
-auto-falls-back above it (ops.pallas_extract.supported), and the native
-loser-tree merge takes its generic pointer-compare heap past W = 8
-(output/native/fkmerge.cpp:182).  These tests pin all three boundaries
-end-to-end: full job, spill-scale accumulator merge, mesh streaming, CLI.
+repo's jnp paths are W-generic, and the native loser-tree merge takes its
+generic pointer-compare heap past W = 8 (output/native/fkmerge.cpp:182).
+These tests pin those boundaries end-to-end: full job, spill-scale
+accumulator merge, mesh streaming, CLI.
 """
 
 import json
@@ -74,7 +73,7 @@ def test_bigk_accumulator_spill_merge():
         all_reads.extend(reads)
         codes = to_batch(reads, 220)
         acc.add_raw(
-            pipeline._batch_extract_keys(jnp.asarray(codes), k, m, B, False)
+            pipeline._batch_extract_keys(jnp.asarray(codes), k, m, B)
         )
     words, counts, _bins = acc.finalize()
     assert len(acc.host_spills) >= 1, "acc_cap=1024 must have spilled"
@@ -104,32 +103,9 @@ def test_bigk_mesh_streaming():
     assert _table_dict(words, counts, k) == dict(oracles.count_reads(all_reads, k))
 
 
-def test_bigk_pallas_direct_parity():
-    """The Pallas extract is verified bit-exact to W=16 on hardware
-    (k=155/201/249, BASELINE.md round 5) but only WINS to W<=8, so
-    auto-selection (supported()) stops at 128 — a direct call past the
-    gate must still agree with the jnp extractor (interpret mode here)."""
-    import jax
-    import jax.numpy as jnp
-
-    from fastkmer_tpu.ops import extract as jex, pallas_extract as pex
-
-    k, m, B = 155, 10, 64
-    assert not pex.supported(k)  # auto stays jnp past 128 (measured tie)
-    rng = np.random.default_rng(3155)
-    reads = random_reads(rng, 4, 340)
-    codes = jnp.asarray(to_batch(reads, 340))
-    ex = jax.jit(lambda c: jex.extract(c, k, m, B))(codes)
-    pe = pex.extract_pallas(codes, k, m, B, block_rows=8, interpret=True)
-    va = np.asarray(ex.valid)
-    assert np.array_equal(va, np.asarray(pe.valid))
-    assert np.array_equal(np.asarray(ex.words)[va], np.asarray(pe.words)[va])
-    assert np.array_equal(np.asarray(ex.bins)[va], np.asarray(pe.bins)[va])
-
-
 def test_bigk_cli(tmp_path):
-    """k=129 through the CLI on a mesh — the first k past the Pallas
-    boundary must run the whole driver stack (auto-fallback, not a cliff)."""
+    """k=129 through the CLI on a mesh — the first k past W = 8 must run
+    the whole driver stack."""
     from fastkmer_tpu import cli
     from fastkmer_tpu.output import writer as writer_mod
 

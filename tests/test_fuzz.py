@@ -1,6 +1,6 @@
 """Randomized cross-config fuzz: for a sweep of (k, m) covering every word
--boundary regime, both engines and the pallas-interpret kernel must agree
-with the dict oracle on random N-ridden reads."""
+-boundary regime, both engines must agree with the dict oracle on random
+N-ridden reads."""
 
 import numpy as np
 import pytest
@@ -13,10 +13,9 @@ from .test_extract import random_reads, to_batch
 CONFIGS = [
     (15, 4), (16, 15), (17, 5), (24, 12), (31, 10), (32, 10),
     (33, 14), (47, 8), (48, 6), (49, 13), (64, 10),
-    # W > 4 (still within the Pallas kernel's k <= 128 range)
+    # W > 4
     (75, 10), (97, 12),
-    # k > 128 (W > 8): past the Pallas extract's boundary (auto-fallback
-    # to the jnp path) and the native merge's packed-key fast paths — the
+    # k > 128 (W > 8): past the native merge's packed-key fast paths — the
     # reference Kmer is arbitrary-length (package.scala:138-503)
     (129, 12), (155, 10), (201, 14),
 ]
@@ -29,7 +28,6 @@ def test_fuzz_all_paths_agree(k, m):
 
     from fastkmer_tpu.ops import count_hash, count_sort
     from fastkmer_tpu.ops import extract as jex
-    from fastkmer_tpu.ops import pallas_extract as pex
 
     B = 64
     rng = np.random.default_rng(1000 + k * 16 + m)
@@ -65,13 +63,6 @@ def test_fuzz_all_paths_agree(k, m):
         for km, c in zip(ht_kmers, np.asarray(sc_ht.counts)[ht_idx].tolist())
     }
     assert ht == expect, f"HT engine mismatch k={k} m={m}"
-
-    # pallas kernel (interpret mode)
-    if pex.supported(k):
-        pe = pex.extract_pallas(jc, k, m, B, block_rows=4, interpret=True)
-        va = np.asarray(ex.valid)
-        assert np.array_equal(va, np.asarray(pe.valid))
-        assert np.array_equal(np.asarray(ex.words)[va], np.asarray(pe.words)[va])
 
 
 def skewed_reads(rng, n, L):

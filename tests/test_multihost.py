@@ -229,7 +229,6 @@ def test_three_process_streaming_matches_oracle(tmp_path):
     env = {
         **os.environ,
         "XLA_FLAGS": "--xla_force_host_platform_device_count=2",
-        "FASTKMER_NO_PALLAS": "1",
     }
     procs = [
         subprocess.Popen(
@@ -323,7 +322,6 @@ def test_two_process_streaming_matches_oracle(tmp_path):
     env = {
         **os.environ,
         "XLA_FLAGS": "--xla_force_host_platform_device_count=4",
-        "FASTKMER_NO_PALLAS": "1",
     }
     procs = [
         subprocess.Popen(

@@ -537,7 +537,7 @@ def test_product_measure_end_to_end(tmp_path):
 ])
 def test_device_pair_sums_match_host(measure_name):
     """The device Gram path (masked block-matmul over table rows, f32
-    MXU form) must agree with the host f64 BLAS path — incl. groups that
+    at HIGHEST matmul precision) must agree with the host f64 BLAS path — incl. groups that
     straddle the T-row block boundary (the halo logic) and S larger than
     typical."""
     from fastkmer_tpu.multiseq.pipeline import accumulate_distances

@@ -1,6 +1,6 @@
 """Multi-chip tests on the 8-virtual-device CPU mesh: the all-to-all bin
 exchange must produce the same global count table as the single-chip path
-and the dict oracle, under both hash and LPT ownership — the TPU analogue of
+and the dict oracle, under both hash and LPT ownership — the device analogue of
 validating Spark shuffle semantics with local[4] (SURVEY.md §4)."""
 
 import numpy as np
@@ -118,69 +118,3 @@ def test_multihost_helpers_single_process():
     assert (lo, hi) == (0, 10)
     assert list(multihost.stripe_batches(range(5), n_hosts=1, host_id=0)) == [0, 1, 2, 3, 4]
     assert list(multihost.stripe_batches(range(5), n_hosts=2, host_id=1)) == [1, 3]
-
-
-def test_distributed_count_pallas_parity(mesh8):
-    """The fused Pallas extractor wired into the exchange (interpret mode
-    on CPU) must reproduce the jnp extractor's ShardCounts exactly."""
-    import jax
-
-    from fastkmer_tpu.parallel import exchange
-
-    k, m, B = 28, 10, 32
-    rng = np.random.default_rng(11)
-    L = 64
-    reads = random_reads(rng, 16, L)
-    codes = to_batch(reads, L)
-    owner_map = partitioner.hash_owner_map(B, 8)
-
-    ref_step = exchange.build_distributed_count(
-        mesh8, k, m, B, 256, owner_map, use_pallas=False
-    )
-    pl_step = exchange.build_distributed_count(
-        mesh8, k, m, B, 256, owner_map, use_pallas=True, pallas_interpret=True
-    )
-    ref = ref_step(exchange.shard_batch(mesh8, codes))
-    got = pl_step(exchange.shard_batch(mesh8, codes))
-    jax.block_until_ready(got.counts)
-    for a, b in zip(ref, got):
-        np.testing.assert_array_equal(np.asarray(a), np.asarray(b))
-
-    est_ref = exchange.estimate_bin_sizes(mesh8, k, m, B, use_pallas=False)
-    est_pl = exchange.estimate_bin_sizes(
-        mesh8, k, m, B, use_pallas=True, pallas_interpret=True
-    )
-    np.testing.assert_array_equal(
-        np.asarray(est_ref(exchange.shard_batch(mesh8, codes))),
-        np.asarray(est_pl(exchange.shard_batch(mesh8, codes))),
-    )
-
-
-def test_streaming_counter_pallas_parity(mesh8):
-    """DistributedCounter with the Pallas extractor (interpret mode) must
-    produce the identical final table, incl. the multiseq seq lane."""
-    from fastkmer_tpu.parallel import exchange, stream
-
-    k, m, B = 28, 10, 32
-    rng = np.random.default_rng(12)
-    L = 64
-    reads = random_reads(rng, 16, L) * 2  # duplicates exercise weights
-    codes = to_batch(reads, L)
-    owner_map = partitioner.hash_owner_map(B, 8)
-
-    def run(use_pallas, with_seq):
-        ctr = stream.DistributedCounter(
-            mesh8, k, m, B, cap=512, acc_cap=1 << 12, owner_map=owner_map,
-            fanin=2, with_seq=with_seq, use_pallas=use_pallas,
-            pallas_interpret=use_pallas,
-        )
-        sids = np.arange(codes.shape[0], dtype=np.int32) % 3 if with_seq else None
-        ctr.feed(codes.copy(), seq_ids=sids)
-        ctr.feed(codes.copy(), seq_ids=sids)
-        return ctr.finalize()
-
-    for with_seq in (False, True):
-        ref = run(False, with_seq)
-        got = run(True, with_seq)
-        for a, b in zip(ref, got):
-            np.testing.assert_array_equal(a, b)

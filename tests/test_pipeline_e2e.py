@@ -292,7 +292,7 @@ def test_device_accumulator_small_cap_spills(tmp_path, small_reads):
     # ... while each fanin window's distinct count still fits the cap
     acc = pipeline.DeviceAccumulator(k, fanin=2, m=m, B=B, acc_cap=1024)
     for codes, _, _ in batching.batch_file(fa, 0, k, 4, 256):
-        acc.add_raw(pipeline._batch_extract_keys(jnp.asarray(codes), k, m, B, False))
+        acc.add_raw(pipeline._batch_extract_keys(jnp.asarray(codes), k, m, B))
     assert acc.host_spills  # the point of the test
     words, counts, bins = acc.finalize()
     np.testing.assert_array_equal(words, ref.words)
@@ -331,7 +331,7 @@ def test_device_accumulator_spill_inflight_bound(tmp_path, small_reads,
     acc = pipeline.DeviceAccumulator(k, fanin=1, m=m, B=B, acc_cap=1024)
     max_pending = 0
     for codes, _, _ in batching.batch_file(fa, 0, k, 4, 256):
-        acc.add_raw(pipeline._batch_extract_keys(jnp.asarray(codes), k, m, B, False))
+        acc.add_raw(pipeline._batch_extract_keys(jnp.asarray(codes), k, m, B))
         pending = sum(1 for s in acc.host_spills if not isinstance(s, tuple))
         max_pending = max(max_pending, pending)
         assert pending <= acc.MAX_INFLIGHT_SPILLS

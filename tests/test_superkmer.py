@@ -118,12 +118,10 @@ def test_smer_exchange_matches_oracle():
     assert exchange.exchange_bytes_per_step(8, 512, k, smax) == 8 * 512 * (smax // 16 + 1) * 4
 
 
-def test_smer_exchange_pallas_parity():
-    """The smer transport now feeds superkmer.group from the resolved
-    extractor (VERDICT r4 weak #3): interpret-mode Pallas extraction must
-    produce the identical per-chip tables as the jnp path, and HT counting
-    on the expanded rows (the reference's literal useHT shape) must match
-    the sort engine."""
+def test_smer_exchange_engines_match_oracle():
+    """The smer transport's per-chip tables must match the oracle with the
+    sort engine, and HT counting on the expanded rows (the reference's
+    literal useHT shape) must match it too."""
     import jax
 
     from fastkmer_tpu import pipeline
@@ -138,11 +136,7 @@ def test_smer_exchange_pallas_parity():
     expect = dict(oracles.count_reads(reads, k))
 
     tables = {}
-    for label, kw in (
-        ("jnp", dict(use_pallas=False)),
-        ("pallas", dict(use_pallas=True, pallas_interpret=True)),
-        ("ht", dict(use_pallas=False, use_ht=True)),
-    ):
+    for label, kw in (("sort", {}), ("ht", dict(use_ht=True))):
         step = exchange.build_distributed_count_smer(
             mesh, k, m, B, 512, smax, owner_map, **kw
         )
@@ -152,6 +146,5 @@ def test_smer_exchange_pallas_parity():
         words, counts, _bins = pipeline.merge_partials(parts, bits.num_words(k))
         kmers = bits.decode_words_batch(words, k)
         tables[label] = {km.decode(): int(c) for km, c in zip(kmers, counts.tolist())}
-    assert tables["jnp"] == expect
-    assert tables["pallas"] == expect
+    assert tables["sort"] == expect
     assert tables["ht"] == expect
